@@ -11,7 +11,7 @@ is the unfinished embedding transform (``/root/reference/
 fftisdf.py:230-294``).  Everything here is served from the same
 (x_k, w_q) ISDF state built once.
 
-Usage: python examples/cc_spectroscopy.py [--nk 2] [--tpu]
+Usage: python examples/cc_spectroscopy.py [--nk 2] [--gpu]
 """
 import argparse
 import os
@@ -27,11 +27,11 @@ def main():
     p = argparse.ArgumentParser()
     p.add_argument("--nk", type=int, default=2, help="k-points along z")
     p.add_argument("--c0", type=float, default=60.0)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -53,7 +53,7 @@ def main():
         precision=1e-12,
     ).build()
     kpts = cell.get_kpts([1, 1, args.nk])
-    dtype = jnp.float64 if not args.tpu else jnp.float32
+    dtype = jnp.float64 if not args.gpu else jnp.float32
 
     t0 = time.perf_counter()
     mf = KRHF(cell, kpts, verbose=0, conv_tol=1e-10)

@@ -14,7 +14,7 @@ framework ships.
 
 Usage:
     python examples/derive_atomic_basis.py --elem H  [--register --check]
-    python examples/derive_atomic_basis.py --elem Ni --tpu --ke 240
+    python examples/derive_atomic_basis.py --elem Ni --gpu --ke 240
 
 Ref context: the reference reaches molopt-sr data through PySCF
 (``/root/reference/fftisdf.py:423``); this is the native-path equivalent.
@@ -46,7 +46,7 @@ def main():
     p.add_argument("--elem", default="H", choices=sorted(EXPONENTS))
     p.add_argument("--box", type=float, default=12.0, help="cube edge, Bohr")
     p.add_argument("--ke", type=float, default=None)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     p.add_argument("--nvirt", type=int, default=3,
                    help="low-virtual states per l mixed (weight 0.05) into "
                         "the radial natural orbitals for the split columns")
@@ -67,7 +67,7 @@ def main():
         return derive_radial(args)
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -79,7 +79,7 @@ def main():
     exps = np.asarray(EXPONENTS[elem])
     lmax = max(l for l, _ in SHELLS[elem])
     ke = args.ke or (60.0 if elem == "H" else 240.0)
-    dtype = jnp.float64 if not args.tpu else jnp.float32
+    dtype = jnp.float64 if not args.gpu else jnp.float32
 
     # every (l, exponent) as its own primitive shell
     shells = [Shell(l=l, exps=np.array([e]), coeffs=np.array([[1.0]]))

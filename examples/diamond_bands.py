@@ -10,7 +10,7 @@ hybrid opens the PBE gap toward experiment without any exxdiv machinery
 (the erfc-screened exchange is finite at q+G=0).  Compare
 ``--xc pbe`` / ``--xc hse06`` / plain HF.
 
-Usage: python examples/diamond_bands.py [--tpu] [--ke 50] [--kmesh 2 2 2]
+Usage: python examples/diamond_bands.py [--gpu] [--ke 50] [--kmesh 2 2 2]
        [--npoints 8] [--c0 40] [--xc hf|lda|pbe|pbe0|hse06]
 """
 import argparse
@@ -50,7 +50,7 @@ def kpath(cell, npoints):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     p.add_argument("--ke", type=float, default=50.0)
     p.add_argument("--kmesh", type=int, nargs=3, default=[2, 2, 2])
     p.add_argument("--npoints", type=int, default=8)
@@ -62,7 +62,7 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     from fftisdf_tpu.utils.device import enable_persistent_cache

@@ -2,7 +2,7 @@
 plane-wave path, run KRHF both ways.
 
 Native analog of the reference drivers (``fftisdf.py:412-473`` and
-``fftdf-with-k.py:173-257``).  Runs on CPU (f64) by default; pass --tpu to
+``fftdf-with-k.py:173-257``).  Runs on CPU (f64) by default; pass --gpu to
 use the default backend in f32.
 
 Usage: python examples/diamond_isdf.py [--ke 50] [--kmesh 2 2 2] [--c0 25]
@@ -22,11 +22,11 @@ def main():
     p.add_argument("--ke", type=float, default=50.0)
     p.add_argument("--kmesh", type=int, nargs=3, default=[1, 1, 2])
     p.add_argument("--c0", type=float, default=25.0)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

@@ -9,7 +9,7 @@ the flagship ISDF acceleration: exact exchange is what makes hybrid DFT
 for solids expensive.
 
 Usage: python examples/diamond_ks.py [--xc lda|pbe|pbe0] [--ke 50]
-       [--kmesh 1 1 2] [--c0 25] [--tpu] [--device]
+       [--kmesh 1 1 2] [--c0 25] [--gpu] [--device]
 """
 import argparse
 import os
@@ -27,13 +27,13 @@ def main():
     p.add_argument("--ke", type=float, default=50.0)
     p.add_argument("--kmesh", type=int, nargs=3, default=[1, 1, 2])
     p.add_argument("--c0", type=float, default=25.0)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     p.add_argument("--device", action="store_true",
                    help="device-resident SCF loop (one fetch per cycle)")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

@@ -8,7 +8,7 @@ repository sketched and never finished), solves each impurity exactly
 and without chemical-potential fitting, against the full-lattice CCSD
 correlation from the same ISDF state.
 
-Usage: python examples/dmet_demo.py [--nk 2] [--tpu]
+Usage: python examples/dmet_demo.py [--nk 2] [--gpu]
 """
 import argparse
 import os
@@ -23,11 +23,11 @@ import numpy as np
 def main():
     p = argparse.ArgumentParser()
     p.add_argument("--nk", type=int, default=2)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

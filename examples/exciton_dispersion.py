@@ -7,7 +7,7 @@ velocity-gauge oscillator strengths at q = 0.  A linear-response
 capability far beyond the reference (it stops at ground-state HF,
 ``/root/reference/fftisdf.py:437-466``).
 
-Usage: python examples/exciton_dispersion.py [--tpu] [--ke 50]
+Usage: python examples/exciton_dispersion.py [--gpu] [--ke 50]
        [--kmesh 2 2 2] [--c0 40] [--xc pbe] [--nroots 3] [--eels]
 
 --eels additionally prints the macroscopic dielectric function
@@ -25,7 +25,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     p.add_argument("--ke", type=float, default=50.0)
     p.add_argument("--kmesh", type=int, nargs=3, default=[2, 2, 2])
     p.add_argument("--c0", type=float, default=40.0)
@@ -38,7 +38,7 @@ def main():
 
     import jax
 
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
     import jax.numpy as jnp
@@ -50,7 +50,7 @@ def main():
     from fftisdf_tpu.scf.tddft import (tda, oscillator_strengths,
                                        dielectric_tda)
 
-    dtype = jnp.float32 if args.tpu else jnp.float64
+    dtype = jnp.float32 if args.gpu else jnp.float64
     cell = structure.to_cell(*structure.bulk_diamond(), basis="gth-szv",
                              pseudo="gth-pade", ke_cutoff=args.ke)
     kpts = cell.get_kpts(args.kmesh)

@@ -6,7 +6,7 @@ re-converged at every strained lattice with k-points deforming with the
 cell, and the Lagrangian is automatically re-anchored when the accumulated
 strain leaves the frozen-image-list validity.
 
-Runs on CPU (f64) by default; pass --tpu to use the default backend in f32.
+Runs on CPU (f64) by default; pass --gpu to use the default backend in f32.
 
 Usage: python examples/lih_variable_cell.py [--a0 6.8] [--mesh 18]
        [--relax-atoms] [--smax 1e-3] [--max-steps 20]
@@ -31,11 +31,11 @@ def main():
                         "limits how low this system can go)")
     p.add_argument("--max-steps", type=int, default=20)
     p.add_argument("--relax-atoms", action="store_true")
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

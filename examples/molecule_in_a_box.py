@@ -12,7 +12,7 @@ truncation, through both the exact plane-wave SCF and the ISDF-compressed
 one.
 
 Usage: python examples/molecule_in_a_box.py [--ke 80] [--boxes 9 11 12.5]
-       [--tpu]
+       [--gpu]
 """
 import argparse
 import os
@@ -29,11 +29,11 @@ def main():
     p.add_argument("--ke", type=float, default=80.0)
     p.add_argument("--boxes", type=float, nargs="+", default=[9.0, 11.0, 12.5])
     p.add_argument("--c0", type=float, default=25.0)
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

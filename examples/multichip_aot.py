@@ -11,7 +11,7 @@ materialized: every operand is a ShapeDtypeStruct; ``_chunk_factors``'s
 output pytree comes from ``jax.eval_shape``.
 
 Usage:  python examples/multichip_aot.py [--ndev 8] [--c0 40]
-        [--out artifacts/multichip_aot_r04.json]
+        [--out artifacts/multichip_aot.json]
 """
 import argparse
 import json
@@ -34,7 +34,7 @@ def main():
     p.add_argument("--c0", type=float, default=40.0)
     p.add_argument("--max-memory-gb", type=float, default=12.0,
                    help="per-device HBM budget driving the plan")
-    p.add_argument("--out", default="artifacts/multichip_aot_r04.json")
+    p.add_argument("--out", default="artifacts/multichip_aot.json")
     args = p.parse_args()
     os.environ["XLA_FLAGS"] = (
         flags + f" --xla_force_host_platform_device_count={args.ndev}"
@@ -53,7 +53,7 @@ def main():
                                             _chunk_factors)
     from fftisdf_tpu.basis.eval import make_evaluator
 
-    # production (TPU) dtypes — the CPU mesh only hosts the compile
+    # production (accelerator) dtypes — the CPU mesh only hosts the compile
     dtype, cdtype = jnp.float32, jnp.complex64
     cell = structure.to_cell(*structure.nio_afm(),
                              basis="gth-dzvp-molopt-sr", pseudo="gth-pade",
@@ -118,7 +118,7 @@ def main():
         "note": "AOT lower+compile of the UNIFIED sharded build chunk "
                 "program (grid-sharded production sweep -> all-to-all -> "
                 "sector-sharded spectral+gram) at the reference driver's "
-                "production config, on a virtual CPU mesh with TPU (f32) "
+                "production config, on a virtual CPU mesh with accelerator (f32) "
                 "dtypes; per-device bytes from XLA's memory analysis",
         "ndev": args.ndev, "nk": nk, "nao": nao, "ngrid": ngrid,
         "nip": nip, "chunk_sectors": nq_pad, "plan": plan,

@@ -1,4 +1,4 @@
-"""North-star SCF artifact (BASELINE.md): converged NiO AFM KUHF on the TPU.
+"""North-star SCF run (BASELINE.md): converged NiO AFM KUHF on the GPU.
 
 Produces the committed evidence the round-2 verdict asked for (item 3):
 
@@ -7,7 +7,7 @@ Produces the committed evidence the round-2 verdict asked for (item 3):
            the reference's fixed 15^3 selection mesh next to the auto
            (cutoff-derived, auto-densifying) mesh at rising c0 — so the
            committed artifact shows WHERE the energy error converges and
-           which knob moves it (round-3 verdict item #1).  On the f32 TPU
+           which knob moves it (round-3 verdict item #1).  On an f32 device
            the curve floors at the f32 J/K noise of oracle+serve; the
            --a64 mode records the same curve on CPU f64 at a smaller
            config, where the true ISDF-form convergence to the
@@ -23,7 +23,7 @@ compile-cache behavior is unreliable), incremental JSON lines per part to
 stdout AND appended to the artifact file, so a timeout loses only the
 unfinished part.
 
-Usage:  python examples/nio_northstar.py [--out artifacts/nio_scf_r03.json]
+Usage:  python examples/nio_northstar.py [--out artifacts/nio_scf.json]
         [--skip-a] [--skip-b] [--ke-a 100] [--kmesh-a 2 2 2] [--cpu]
 
 Note: absolute energies use the in-repo Ni q18 refit + surrogate molopt-sr
@@ -50,7 +50,7 @@ def emit(path, rec):
 
 def main():
     p = argparse.ArgumentParser()
-    p.add_argument("--out", default="artifacts/nio_scf_r03.json")
+    p.add_argument("--out", default="artifacts/nio_scf.json")
     p.add_argument("--skip-a", action="store_true")
     p.add_argument("--skip-b", action="store_true")
     p.add_argument("--ke-a", type=float, default=100.0)
@@ -91,7 +91,7 @@ def main():
     if args.cpu or args.a64:
         # platform pin must precede ANY backend touch (the a64 curve is a
         # pure-CPU f64 run; enable_persistent_cache below would otherwise
-        # instantiate the TPU client first and c128 jits would route there)
+        # instantiate the GPU client first and c128 jits would route there)
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

@@ -6,7 +6,7 @@ thermodynamics on a BZ q-sample, and the Voigt elastic tensor by central
 FD of the analytic stress (scf.elastic).  Second-derivative capabilities
 the reference (single-point numpy scripts on PySCF) does not have at all.
 
-Runs on CPU (f64) by default; pass --tpu to use the default backend in f32.
+Runs on CPU (f64) by default; pass --gpu to use the default backend in f32.
 
 Usage: python examples/phonon_elastic.py [--nrep 2] [--mesh 12] [--temp 300]
 """
@@ -31,11 +31,11 @@ def main():
                    help="quasi-harmonic thermal expansion of an H2 "
                         "molecular chain (E(V) scan + Gamma phonons per "
                         "volume + F(V,T) minimization + Grueneisen)")
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

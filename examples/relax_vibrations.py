@@ -5,7 +5,7 @@ reverse-mode forces (scf.optimize), then computes harmonic frequencies from
 the FD-of-analytic-forces Hessian (scf.hessian).  A capability chain the
 reference (single-point numpy scripts on PySCF) does not have at all.
 
-Runs on CPU (f64) by default; pass --tpu to use the default backend in f32.
+Runs on CPU (f64) by default; pass --gpu to use the default backend in f32.
 
 Usage: python examples/relax_vibrations.py [--mesh 20] [--d0 2.0] [--isdf]
 """
@@ -26,11 +26,11 @@ def main():
     p.add_argument("--box", type=float, default=8.0)
     p.add_argument("--isdf", action="store_true",
                    help="ISDF force backend (per-geometry rebuilt)")
-    p.add_argument("--tpu", action="store_true")
+    p.add_argument("--gpu", action="store_true")
     args = p.parse_args()
 
     import jax
-    if not args.tpu:
+    if not args.gpu:
         jax.config.update("jax_platforms", "cpu")
         jax.config.update("jax_enable_x64", True)
 

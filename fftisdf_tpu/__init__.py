@@ -1,10 +1,10 @@
-"""fftisdf_tpu — TPU-native FFT-accelerated Interpolative Separable Density Fitting.
+"""fftisdf_tpu — accelerator-native FFT-accelerated Interpolative Separable Density Fitting.
 
-A from-scratch JAX/XLA/Pallas framework for compressing periodic electron
+A from-scratch JAX/XLA framework for compressing periodic electron
 repulsion integrals (ERIs) of Gaussian-basis crystals with k-point sampling,
 with the capabilities of the reference research code
 ``yangjunjie0320/fft-isdf-scratch`` (see /root/reference), re-designed
-TPU-first:
+for accelerators (the package name is historical; it runs on GPU and CPU):
 
 - ``lattice``  — crystal cells, uniform FFT grids, k-point meshes, phase
   matrices, momentum-conservation tables (ref: pyscf Cell / k2gamma usage in

@@ -34,7 +34,7 @@ Spin-restricted with (possibly fractional) spherically averaged
 occupations, exactly like the GTH atomic fits.
 
 Host-side numpy/scipy tool (setup/validation tier, like the C++ lattice
-engine's image lists — not the TPU compute path).
+engine's image lists — not the device compute path).
 """
 from __future__ import annotations
 

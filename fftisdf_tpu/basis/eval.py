@@ -1,6 +1,6 @@
-"""Native periodic GTO evaluation on real-space grids (JAX, TPU-first).
+"""Native periodic GTO evaluation on real-space grids (JAX, accelerator-first).
 
-TPU-native replacement for PySCF's ``pbc_eval_gto("GTOval", coords, kpts=...)``
+Accelerator-native replacement for PySCF's ``pbc_eval_gto("GTOval", coords, kpts=...)``
 and the blocked ``_numint.block_loop`` iterator used throughout the reference
 (``/root/reference/fftisdf.py:350-355,367-370``, ``fftdf-with-k.py:51,121``).
 
@@ -8,13 +8,13 @@ The Bloch AO at k is a lattice sum over translation images::
 
     phi_{k,mu}(r) = sum_T  exp(i k.T) * chi_mu(r - A_mu - T)
 
-TPU-first design (vs. a sequential image loop):
+Accelerator-first design (vs. a sequential image loop):
 
 - shells are grouped by center; each group shares one image list (max decay
   radius of its shells) and one (ngrid, nimg) distance/exponential tensor —
-  the expensive ``exp`` evaluations are fully vectorized on the VPU;
+  the expensive ``exp`` evaluations are fully vectorized;
 - the image sum with k-phases is a single ``(g,T,f) x (T,k)`` contraction —
-  an MXU matmul instead of a length-nimg sequential scan;
+  a matmul instead of a length-nimg sequential scan;
 - arbitrary coordinates are wrapped into the home cell with the compensating
   Bloch phase, so the finite image lists stay exact everywhere.
 
@@ -194,7 +194,7 @@ def make_evaluator(cell, kpts=None, precision=None, dtype=jnp.float64,
             if gamma:
                 blocks.append(jnp.sum(chi, axis=1))
             else:
-                # image sum with k-phases as real MXU contractions: chi is
+                # image sum with k-phases as real matmul contractions: chi is
                 # real, so contract with Re/Im of the phases separately
                 # (half the flops of a complex x complex dot)
                 ph = np.exp(1j * images @ kpts_arr.T)        # (T, nk)

@@ -68,6 +68,5 @@ def trans_2e(df, c_ao_lo=None):
                 terms.append(assemble_eri(jit_take(df.wq, int(q)),
                                           xlo[k1], xlo[k2],
                                           xlo[k3], xlo[k4]))
-    # accumulate under jit (eager complex adds are unsupported on some TPU
-    # transports; see utils.device)
+    # accumulate under jit: one fused sum instead of nk^2 eager adds
     return jax.jit(lambda ts: sum(ts[1:], ts[0]) / nk)(terms)

@@ -65,9 +65,8 @@ def make_evaluator_diff(cell, kpts=None, precision=None, dtype=jnp.float64,
             if gamma:
                 blocks.append(jnp.sum(chi_all, axis=1))
             else:
-                # image phases from a real host constant (complex host
-                # constants round-trip through transports that reject them);
-                # split re/im contraction as in basis.eval
+                # image phases from a real host constant; split re/im
+                # contraction as in basis.eval
                 tph = jnp.asarray(np.asarray(g.images) @ kpts_arr.T,
                                   dtype=dtype)
                 out_r = jnp.einsum("gTf,Tk->kgf", chi_all, jnp.cos(tph))

@@ -19,7 +19,7 @@ compression of the auxiliary dimension):
     q = k2 - k1 (mod G).
 
 J/K here run the GDF algorithm — per-(k1,k2) half-transforms of the
-3-index factor — NOT the ISDF image-space serve: on TPU there is no disk
+3-index factor — NOT the ISDF image-space serve: on the device there is no disk
 worth spilling the (nk^2, naux, nao^2) tensor to (PySCF streams it from
 HDF5), so ``A`` is regenerated on the fly per k1 row and consumed
 immediately; the timing is what a disk-free GDF serve costs, which is the

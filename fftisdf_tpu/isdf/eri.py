@@ -2,7 +2,7 @@
 
 eri[m,n,k,l] = sum_IJ w^q_IJ conj(x1_{I,m}) x2_{I,n} conj(x3_{J,k}) x4_{J,l}
 (ref ``/root/reference/fftdf-with-k.py:231``), with q = k2 - k1 (mod G).
-Structured as two pair contractions around the (nip, nip) metric so the MXU
+Structured as two pair contractions around the (nip, nip) metric so the device
 sees three large matmuls instead of a 5-tensor einsum.
 """
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""ISDF J/K builders: pure dense algebra on the MXU.
+"""ISDF J/K builders: pure dense algebra (matrix products).
 
 Native equivalents of ``get_j_kpts`` / ``get_k_kpts``
 (``/root/reference/fftisdf.py:133-228``).  Derivation (independent of the
@@ -37,9 +37,7 @@ def get_j_kpts(x_k, w0, dms):
 @jax.jit
 def add_ewald_exx(vk, s1e, dms, mad):
     """Probe-charge (exxdiv='ewald') G=0 exchange correction:
-    vk[k] += madelung * S_k dm_k S_k, batched over any leading set axes.
-    The add stays under jit (eager complex dispatch is broken on some TPU
-    transports)."""
+    vk[k] += madelung * S_k dm_k S_k, batched over any leading set axes."""
     return vk + mad * jnp.einsum("kmp,...kpq,kqn->...kmn", s1e, dms, s1e)
 
 
@@ -64,15 +62,14 @@ def get_k_kpts(x_k, wq, phase, dms):
 # density-INdependent, so SCF drivers precompute it once per build (real:
 # half the bytes of wq) and each iteration pays only the density-side
 # transforms.  The k-grid enumeration is C-ordered (lattice.kpoints), so
-# the (nimg, nk) phase contraction is a 3D DFT over the mesh axes —
-# but on TPU the O(nk log nk) k-axis FFT LOSES to the O(nk^2) matmul
-# form: jnp.fft over the LEADING axes forces XLA to transpose the
-# multi-GB (nk, nip, nip) tensor so the transform axes are innermost
-# (measured at the production shapes nk=64, nip=2480: 169 ms per FFT
-# pass, 308 ms total serve), while splitting the phase matrix into its
-# cos/sin parts turns both transforms into four real (nk, nk) x
-# (nk, nip^2) MXU gemms with k contracted in place — 94 ms total serve,
-# 3.3x faster, and nk^2 extra flops are negligible (nk ~ 64 << nip).
+# the (nimg, nk) phase contraction is a 3D DFT over the mesh axes.  The
+# serve runs it as an O(nk^2) matmul instead of the O(nk log nk) k-axis
+# FFT: jnp.fft over the LEADING axes makes XLA transpose the multi-GB
+# (nk, nip, nip) tensor so the transform axes are innermost, while
+# splitting the phase matrix into its cos/sin parts turns both
+# transforms into four real (nk, nk) x (nk, nip^2) gemms with k
+# contracted in place; the nk^2 extra flops are negligible (nk ~ 64 <<
+# nip).  Which form is faster on a given device is not re-measured here.
 # ---------------------------------------------------------------------
 
 def _phase_cs(kmesh, rdtype):
@@ -110,7 +107,7 @@ def wq_to_ws(wq, kmesh):
 def get_k_kpts_img(x_k, ws, dms, kmesh):
     """vk from the precomputed image-space metric (see :func:`wq_to_ws`);
     identical algebra to :func:`get_k_kpts` (gated in tests), with the two
-    per-density phase contractions as real cos/sin MXU gemms (see the
+    per-density phase contractions as real cos/sin gemms (see the
     layout note above):
 
         rhos   = Re((C + iS) rhok)        = C Re(rhok) - S Im(rhok)

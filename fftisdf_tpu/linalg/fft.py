@@ -4,7 +4,7 @@ Native replacement for ``pyscf.pbc.tools.fft/ifft`` (used at
 ``/root/reference/fftisdf.py:113,118``): arrays carry a flat grid axis of
 size prod(mesh) laid out C-order (last mesh axis fastest, matching
 ``Cell.gen_uniform_grids``); transforms run over that axis as a 3D FFT.
-XLA lowers these to the TPU FFT; the batch (leading) axes are where
+XLA lowers these to the backend FFT (cuFFT on GPU); the batch (leading) axes are where
 sharding happens (SURVEY.md section 2b).
 """
 from __future__ import annotations

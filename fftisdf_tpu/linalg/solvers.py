@@ -10,8 +10,8 @@ four solvers (SURVEY.md section 2a #7-10):
 - ``whiten`` — SVD-whitening of the interpolation vectors so the solve is
   diagonal (``fftdf-with-k-svd-backup.py:84-105,173-176``)
 
-On TPU all four reduce to one eigendecomposition of the hermitian ``A``
-(XLA eigh) followed by MXU matmuls; ``gelsy``'s column-pivoted QR has no TPU
+On the device all four reduce to one eigendecomposition of the hermitian
+``A`` (XLA eigh) followed by matmuls; ``gelsy``'s column-pivoted QR has no
 advantage over eigh for hermitian systems, so eigh is the canonical kernel.
 The framework's default is ``ridge`` (Tikhonov + Cholesky): eigh-free and,
 with refinement, 40-150x more accurate than spectral truncation in f32.
@@ -99,7 +99,7 @@ def _ridge_factor(a, rcond):
     # f32 its eigenvalue noise floor (~ n eps lam_max) can sit BELOW
     # -lam0 = -rcond for heavily compressed (rank-deficient) quartics, and
     # whether a marginal gram crosses depends on the backend's accumulation
-    # order (observed: CPU f32 fine, TPU f32 Cholesky all-NaN at diamond
+    # order (observed: CPU f32 fine, accelerator f32 Cholesky all-NaN at diamond
     # c0=40).  Escalate lam by 10x until the shifted Cholesky is finite —
     # stop_gradient keeps the scalar search out of reverse sweeps (lam is
     # a regularizer; its sensitivity is not part of the functional), so
@@ -206,7 +206,7 @@ def ridge_operator(a, rcond=1e-10, refine=None):
 
     The smooth counterpart of spectral truncation: weak directions are damped
     instead of cut.  One potrf + two triangular solves — much cheaper than
-    eigh on TPU (no QDWH iterations).  Jacobi preconditioning and optional
+    eigh.  Jacobi preconditioning and optional
     iterative refinement as in hermitian_operator.  Returns
     (apply, rank=n); apply is a hermitian linear operator."""
     refine = _default_refine(a, refine)
@@ -404,7 +404,7 @@ def fitting_operator(a, method="lstsq", rcond=1e-10, rank=None,
 
 def solve_fitting(a, b, method="lstsq", rcond=1e-10, rank=None,
                   precondition=True, refine=None):
-    """Dispatch over the reference's solver variants; all TPU-native.
+    """Dispatch over the reference's solver variants; all device-native.
 
     a: (nip, nip) hermitian PSD; b: (nip, m).  Returns (z, rank).
     """

@@ -1,12 +1,14 @@
 """ctypes bindings for the native host-side lattice engine.
 
 Builds ``native/lattice_engine.cpp`` on demand with g++ (cached next to the
-package); every entry point has a pure-Python fallback so the framework works
+package, named after a hash of the source, so a library built from other
+source is never loaded); every entry point has a pure-Python fallback so the framework works
 without a toolchain.  Set ``FFTISDF_TPU_NO_NATIVE=1`` to force the fallbacks.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import sys
@@ -23,7 +25,8 @@ def _source_path() -> Path:
 
 
 def _lib_path() -> Path:
-    return Path(__file__).resolve().parent / "_liblattice_engine.so"
+    digest = hashlib.sha256(_source_path().read_bytes()).hexdigest()[:16]
+    return Path(__file__).resolve().parent / f"_liblattice_engine_{digest}.so"
 
 
 def load():
@@ -34,12 +37,16 @@ def load():
     _TRIED = True
     if os.environ.get("FFTISDF_TPU_NO_NATIVE"):
         return None
-    src, lib = _source_path(), _lib_path()
     try:
-        if not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime:
+        src, lib = _source_path(), _lib_path()
+        if not lib.exists():
+            # build under a private name and rename: concurrent importers
+            # never load a half-written library
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
             subprocess.run(
-                ["g++", "-O3", "-shared", "-fPIC", str(src), "-o", str(lib)],
+                ["g++", "-O3", "-shared", "-fPIC", str(src), "-o", str(tmp)],
                 check=True, capture_output=True, timeout=120)
+            os.replace(tmp, lib)
         _LIB = ctypes.CDLL(str(lib))
         _declare(_LIB)
     except Exception as exc:  # toolchain missing, build failure, ...

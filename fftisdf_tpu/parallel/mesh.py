@@ -1,11 +1,11 @@
 """Device-mesh helpers.
 
 The reference has no distributed backend at all (single process, SURVEY.md
-section 2c); parallelism here is an original TPU design: a 1D logical mesh
+section 2c); parallelism here is an original design: a 1D logical mesh
 axis "d" over which the two build stages shard along their natural data axes
 — the real-space grid for the RHS sweep, the momentum sector q for the solve
-+ FFT stage — with one all-to-all (XLA-inserted resharding) between them over
-ICI.  This is the HBM-sharded replacement for the reference's HDF5 out-of-core
++ FFT stage — with one all-to-all (XLA-inserted resharding) between them over the
+device interconnect.  This is the device-memory-sharded replacement for the reference's HDF5 out-of-core
 spill (``/root/reference/fftisdf.py:60-64``).
 """
 from __future__ import annotations

@@ -198,8 +198,7 @@ def get_k_kpts(cell, dm_kpts, ao_kpts, kpts, mesh=None, coords=None,
     npair = nrow * nk
     chunk = min(pair_chunk, npair)
 
-    # complex device arrays go in as jit *arguments* (closure constants
-    # round-trip through the host on complex-hostile transports)
+    # complex device arrays go in as jit *arguments*, not closure constants
     @jax.jit
     def map_chunk(idx, ao_row, ao_kpts, dm):
         return jax.lax.map(lambda i: pair_body(i, ao_row, ao_kpts, dm), idx)

@@ -15,7 +15,7 @@ embedding-ERI assembly, which runs on device through the ISDF factors):
 2. Bath = right singular vectors of the fragment-environment block
    (<= n_frag vectors); embedding basis = fragment ⊕ bath, carried as
    k-resolved AO coefficients.
-3. Embedding ERIs from `trans_2e` (three MXU matmuls per momentum
+3. Embedding ERIs from `trans_2e` (three matmuls per momentum
    triple); embedding one-body = projected converged Fock minus the
    embedding-internal mean field (interacting-bath standard), so the
    mean-field density is stationary inside the embedding.

@@ -178,7 +178,8 @@ class KRHF:
                                # from with_df.trunc when one is supplied.
     ovlp_cutoff: float = None  # canonical-orthogonalization threshold;
                                # None: dtype-aware (1e-10 f64, 2e-6 f32)
-    dtype: object = None       # device dtype; None = f64 (f32 on TPU)
+    dtype: object = None       # device dtype; None = f64 on CPU, f32 on
+    #                            any non-CPU backend
     setup_chunk_gb: float = 2.0  # AO-block budget of the k-chunked
                                # s1e/h1e setup (see __post_init__)
     verbose: int = 3
@@ -222,9 +223,9 @@ class KRHF:
                 f"with_df truncation {df_trunc} != SCF truncation "
                 f"{self.trunc}")
         # one-time s1e/h1e setup, CHUNKED over k-points: the full-grid AO
-        # tensor is nk*ngrid*nao complex (7.9 GB at NiO dzvp ke=200 4x4x4)
-        # and, held next to the ISDF state, OOMs the 16 GB chip — but the
-        # integrals are k-diagonal, so k-chunks of ~2 GB suffice.  The
+        # tensor is nk*ngrid*nao complex (7.9 GB at NiO dzvp ke=200 4x4x4),
+        # held next to the ISDF state — but the integrals are k-diagonal,
+        # so k-chunks of ~2 GB suffice.  The
         # full tensor itself is only needed by the band-structure / exact-
         # PW / xc paths and is evaluated LAZILY there (self._get_ao).
         coords = cell.gen_uniform_grids()

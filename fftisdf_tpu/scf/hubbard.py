@@ -148,7 +148,7 @@ def eu_and_vu_traced(dm, shalf, sites):
     ``dm`` (nspin, nk, nao, nao) and ``shalf`` (nk, nao, nao) are device
     arrays; ``sites`` is the static [(idx, U), ...] list from
     :func:`build_sites` (the small integer index constants embed in the
-    trace — only *complex* closure constants are transport-hostile)."""
+    trace)."""
     import jax.numpy as jnp
 
     nspin, nk, nao = dm.shape[:3]

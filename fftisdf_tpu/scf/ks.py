@@ -376,8 +376,6 @@ class _DeviceKSVeff:
             extra = extra + (self.with_df.get_ws_omega(-self._spec.omega),)
         if self._hub_sites is not None:
             # +U stays on device too: shalf rides as a jit *argument*
-            # (complex device array — closure constants round-trip through
-            # the host on complex-hostile transports)
             extra = extra + (to_device(self._shalf, dtype=self._get_ao().dtype),)
         return extra
 

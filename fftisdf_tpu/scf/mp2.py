@@ -11,7 +11,7 @@ insulating occupations.
 with v_{ijab} = (i k_i, a k_a | j k_j, b k_b), k_b fixed by momentum
 conservation, and denominators from the converged KRHF orbital energies.
 ERIs come straight from ``assemble_eri`` over MO-projected interpolation
-vectors, so the cost per k-triple is three small MXU matmuls.
+vectors, so the cost per k-triple is three small matmuls.
 """
 from __future__ import annotations
 

@@ -8,7 +8,7 @@ contracts to the nip x nip fitting space by the determinant identity
     det(1 - V G) = det(1 - w_q chi_q(iw)),
     chi_q(iw) = sum_p g_p(iw) A[:, p] A[:, p]^T,
 
-so each (q, iw) sample costs one (nip, npair) x (npair, nip) MXU matmul
+so each (q, iw) sample costs one (nip, npair) x (npair, nip) matmul
 and one nip x nip slogdet instead of anything in the O((nocc*nvir*nk)^2)
 pair space.  Closed-shell, insulating occupations:
 

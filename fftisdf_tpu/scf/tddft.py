@@ -5,14 +5,14 @@ Capability beyond the reference (it stops at ground-state HF,
 energies at arbitrary momentum transfer q — exciton dispersion across the
 Brillouin zone — from KRHF (CIS/TDHF) and KRKS (TDA-DFT/TDDFT) references.
 
-Design (TPU-first):
+Design (accelerator-first):
 
 - The two-electron couplings ride the ISDF factorization: with
   ``(i k1, j k2 | k k3, l k4) = sum_IJ w^q_IJ conj(x1_Ii) x2_Ij
   conj(x3_Jk) x4_Jl`` (isdf.ao2mo.mo_eri), the Coulomb coupling of the
   whole excitation space collapses to ONE nip-vector through w_{-q}, and
   the exchange coupling (hybrids/HF) to nk gathered nip x nip Hadamard-
-  gram products — all MXU matmuls, no O(npair^2) integral tensor.
+  gram products — all matmuls, no O(npair^2) integral tensor.
 - The adiabatic xc kernel needs no hand-derived fxc: the coupling is the
   exact Hessian-vector product of the *discrete* Exc (scf.xc evaluates
   Exc on the FFT grid; its gradient is the SCF potential, FD-gated), so

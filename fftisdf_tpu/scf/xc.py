@@ -1,4 +1,4 @@
-"""Exchange-correlation functionals for periodic KS-DFT, TPU-first.
+"""Exchange-correlation functionals for periodic KS-DFT, accelerator-first.
 
 Capability beyond the reference (``/root/reference/fftisdf.py`` drives HF
 only): LDA (Slater exchange + PW92 correlation), PBE, and hybrids (PBE0)

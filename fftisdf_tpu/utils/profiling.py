@@ -1,6 +1,6 @@
 """Profiling hooks: jax.profiler traces + named phases.
 
-TPU equivalent of the reference's two tracing mechanisms (SURVEY.md section
+Device-side equivalent of the reference's two tracing mechanisms (SURVEY.md section
 5): PySCF-logger phase timers and line_profiler decoration
 (``fftdf-with-k.py:18-19``).  Usage::
 

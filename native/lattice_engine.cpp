@@ -1,7 +1,7 @@
 // Native host-side lattice engine for fftisdf_tpu.
 //
-// The TPU owns all numerics (JAX/XLA/Pallas); this library owns the
-// scalar-heavy host-side setup work that shapes what the TPU executes:
+// The device owns the bulk numerics (JAX/XLA); this library owns the
+// scalar-heavy host-side setup work that shapes what the device executes:
 //   - lattice-image enumeration for Gaussian decay radii (the image lists
 //     drive the AO evaluator's scan length),
 //   - momentum-conservation tables (O(nk^3) with hashing),

@@ -1,5 +1,6 @@
 """f32-device numerics regression gates (run on CPU in f32 to emulate the
-TPU dtype regime; the real-hardware numbers live in README/bench).
+accelerator dtype regime; device numbers come from bench.py and
+chip_smoke.py on the card).
 
 Locks in the solver-hardening results: the default ridge fitting solve must
 keep compressed J/K at the f64 compression floor in f32.

@@ -388,3 +388,23 @@ def test_select_keep_trims_near_null(he2):
     assert np.abs(np.asarray(vj_t) - np.asarray(vj_e)).max() < 1e-5 * max(sj, 1)
     sk = np.abs(np.asarray(vk_e)).max()
     assert np.abs(np.asarray(vk_t) - np.asarray(vk_e)).max() < 1e-5 * max(sk, 1)
+
+
+@pytest.mark.parametrize("dtype", [np.complex64, np.complex128])
+@pytest.mark.parametrize("shape", [(1, 64, 5), (3, 100, 7), (2, 300, 4),
+                                   (16, 96, 40)])
+def test_pair_gram_sq_matches_numpy(shape, dtype):
+    """Device-selection gram vs a complex128 numpy reference."""
+    from fftisdf_tpu.isdf.kpoint import pair_gram_sq
+
+    rng = np.random.default_rng(0)
+    x = (rng.standard_normal(shape)
+         + 1j * rng.standard_normal(shape)).astype(dtype)
+    xr = x.astype(np.complex128)
+    g = np.einsum("kgm,khm->gh", xr.conj(), xr).real
+    ref = g * g / shape[0]
+    out = np.asarray(pair_gram_sq(jnp.asarray(x)))
+    assert out.shape == (shape[1], shape[1])
+    assert out.dtype == (np.float32 if dtype == np.complex64 else np.float64)
+    tol = 2e-5 if dtype == np.complex64 else 1e-12
+    np.testing.assert_allclose(out, ref, atol=tol * np.abs(ref).max())

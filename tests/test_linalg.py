@@ -166,7 +166,7 @@ def test_pivoted_cholesky_np_matches_jax():
 
 def test_ridge_factor_survives_indefinite_f32_gram():
     """PSD guard: an f32 gram whose eigenvalue noise floor sits below
-    -rcond (observed on TPU at heavy compression: backend accumulation
+    -rcond (observed on an accelerator at heavy compression: backend accumulation
     order tips the scaled quartic indefinite and Cholesky returns all-NaN)
     must factor finitely via the adaptive-lambda escalation, keep a
     near-exact solve on the healthy subspace, and stay differentiable."""

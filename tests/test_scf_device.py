@@ -1,6 +1,6 @@
 """Device-resident SCF driver parity gates (CPU f64; the point of the
-driver is TPU transfer avoidance, but its *numbers* must match the host
-driver exactly at convergence)."""
+driver is avoiding host<->device transfers, but its *numbers* must match
+the host driver exactly at convergence)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest

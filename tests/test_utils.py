@@ -47,3 +47,53 @@ def test_profiling_phase_scope():
     with profiling.phase("unit-test-phase"):
         x = jnp.ones(4).sum()
     assert float(x) == 4.0
+
+
+_CACHE_PROBE = """
+import os, sys, jax, jax.numpy as jnp
+from fftisdf_tpu.utils.device import enable_persistent_cache
+path = enable_persistent_cache()
+jax.config.update("jax_persistent_cache_min_compile_time_secs", 0.0)
+jax.config.update("jax_persistent_cache_min_entry_size_bytes", -1)
+jax.jit(lambda a: jnp.sin(a) * 3.0 + 1.0)(jnp.ones(7)).block_until_ready()
+print(path)
+print(jax.config.jax_compilation_cache_dir)
+"""
+
+
+def _run_cache_probe(tmp_path, cache_env):
+    import os
+    import subprocess
+    import sys
+
+    env = dict(os.environ, JAX_PLATFORMS="cpu", HOME=str(tmp_path / "home"),
+               TMPDIR=str(tmp_path))
+    env.pop("JAX_COMPILATION_CACHE_DIR", None)
+    env.update(cache_env)
+    (tmp_path / "home").mkdir()
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", _CACHE_PROBE], env=env,
+                       cwd=repo, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-2000:]
+    return repo, r.stdout.split()[-2:]
+
+
+def test_compile_cache_uses_env_dir(tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set, the cache is written there and
+    nowhere under HOME."""
+    cache = tmp_path / "cache"
+    _, (path, cfg_dir) = _run_cache_probe(
+        tmp_path, {"JAX_COMPILATION_CACHE_DIR": str(cache)})
+    assert path == cfg_dir == str(cache)
+    assert any(cache.iterdir())
+    assert not any((tmp_path / "home").iterdir())
+
+
+def test_compile_cache_defaults_to_repo(tmp_path):
+    """Unset, the cache lives in <repo>/.jax_cache (git-ignored)."""
+    import os
+
+    repo, (path, cfg_dir) = _run_cache_probe(tmp_path, {})
+    assert path == cfg_dir == os.path.join(repo, ".jax_cache")
+    assert any(os.scandir(path))
+    assert not any((tmp_path / "home").iterdir())
